@@ -1,11 +1,11 @@
-"""meshrecon: TPU-native dense mesh reconstruction from monocular video.
+"""meshrecon: dense mesh reconstruction from monocular video, in JAX.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the
 reference `addam/mesh-reconstruction` C++/OpenGL program: it ingests an RGB
 video plus a Blender-exported YAML camera track and iteratively refines a
 sparse point cloud into a dense triangle mesh.
 
-Layer map (mirrors SURVEY.md section 1, re-architected TPU-first):
+Layer map (mirrors SURVEY.md section 1, re-architected for an accelerator):
 
 - ``meshrecon.io``        -- OpenCV-YAML dialect parser, video decode, OBJ/PNG IO
 - ``meshrecon.geometry``  -- camera model, homogeneous ops (pure jnp)

@@ -5,15 +5,14 @@ Re-architecture of the normal-estimation pass of triangulatePixels
 triangulated points for every pixel and runs cv::PCA on it — an O(radius^2)
 gather per pixel. Here the same covariance comes from box-filtered moment
 images (p, p p^T, count) followed by a closed-form smallest-eigenvector solve
-of the 3x3 covariance — all fused elementwise VPU work.
+of the 3x3 covariance — all fused elementwise work.
 
-TPU layout notes (measured on v5e):
-- moment channels ride the LEADING axis ((C, H, W)); trailing small channel
-  dims would be Mosaic-tiled over (W, C) with a ~40x padding blowup.
-- box sums use a binary shifted-add cascade (static slices); integral images
-  would need a lane-axis cumsum, which lowers to a sequential scan.
+Layout notes:
+- moment channels ride the LEADING axis ((C, H, W)), so every channel is a
+  contiguous image plane.
+- box sums use a binary shifted-add cascade (static slices).
 - the 3x3 eigenvector solve is the analytic trigonometric method on plane
-  arguments; batched jnp.linalg.eigh was ~1000x slower.
+  arguments; batched jnp.linalg.eigh is orders of magnitude slower.
 
 Semantics preserved:
 

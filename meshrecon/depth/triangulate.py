@@ -4,19 +4,17 @@ Re-architecture of triangulatePixels/triangulatePixel (util.cpp:62-246): the
 reference runs a scalar 1-D Gauss-Newton per pixel in a double loop; here the
 whole (K, H, W) problem is one jitted program of fused elementwise arrays —
 every quantity in the solver is affine in the single unknown z, so each GN
-step is a handful of VPU ops per (pixel, side-camera) pair.
+step is a handful of elementwise ops per (pixel, side-camera) pair.
 
-TPU layout note: every dense intermediate is a PLANE — (H, W) or (K, H, W)
-with the image dims last. Arrays shaped (..., H, W, 4) would be tiled by
-Mosaic as (8, 128) over the trailing (W, 4) dims, a ~30x register/memory
-blowup measured on v5e; all small channel axes are therefore unstacked.
+Layout note: every dense intermediate is a PLANE — (H, W) or (K, H, W)
+with the image dims last; small channel axes are unstacked into planes.
 
 Sampling modes (static arg):
 - ``exact``: bilinear depth/gradient samples at the flow-displaced position
   (goodSample semantics, util.cpp:44-53, 207-217) — data-dependent gathers.
 - ``taylor``: first-order expansion ``z(p+f) ~= z(p) + g . f`` using the
   Sobel gradient already computed (and the center gradient for the
-  covariance). No gathers at all — TPU gathers cost ~9 cycles/element. The
+  covariance). No gathers at all. The
   displaced-position validity check degrades to center validity. Within the
   pipeline, flows against the rendered prediction are small, so the
   first-order error is far below the flow variance.
@@ -113,8 +111,8 @@ def triangulate_pixels(flows, main_camera, side_cameras, side_valid, depth,
     flows: (K, H, W, 4) (fx, fy, variance, 0) — or a tuple of three
     (K, H, W) channel planes ``(fx, fy, variance)``. The fused pipeline
     passes planes: packing the channels into a minor-4 tensor only for
-    this function to unstack them again costs a pure HBM round trip
-    (~0.5 ms of the 8.3 ms fused update at 640x480 K=3) and a dead zeros
+    this function to unstack them again costs a pure memory round trip
+    and a dead zeros
     channel (the CV_32FC4 pad, flow.cpp:37-41, exists only at the public
     API surface). main_camera: (4, 4);
     side_cameras: (K, 4, 4); side_valid: (K,) bool mask (capacity padding —
@@ -239,9 +237,8 @@ def triangulate_pixels(flows, main_camera, side_cameras, side_valid, depth,
     pdx, pdy = nzx, nzy  # frozen Jacobian numerators (util.cpp:86)
 
     def residuals(z):
-        # ONE reciprocal instead of four divisions per sweep (VPU divides
-        # cost ~7 cycles each; the GN loop runs this over (K, H, W) every
-        # iteration)
+        # ONE reciprocal instead of four divisions per sweep (the GN loop
+        # runs this over (K, H, W) every iteration)
         wi = w0 + wz * z[None]
         wi = jnp.where(jnp.abs(wi) < 1e-12, 1e-12, wi)
         inv_wi = 1.0 / wi
@@ -270,7 +267,7 @@ def triangulate_pixels(flows, main_camera, side_cameras, side_valid, depth,
     # iterations; under SPMD every pixel pays every sweep, and the measured
     # bench fixture converges 78379 -> 71 -> 3 -> 1 active by sweep 4 with
     # ONE oscillating straggler then dragging all 307k pixels through all
-    # 50 sweeps (~0.9 of the 1.17 ms stage). The exit therefore also fires
+    # 50 sweeps. The exit therefore also fires
     # once <= _GN_TAIL stragglers remain after >= _GN_MIN_SWEEPS sweeps:
     # those pixels are GN limit cycles at degenerate geometry (near-zero
     # parallax flips dz sign forever) — the reference leaves them

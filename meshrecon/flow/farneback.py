@@ -8,7 +8,7 @@ window via separable moment filters, then solve for the displacement that
 aligns the two quadratics — with a dyadic pyramid (XLA-friendly resampling)
 instead of the reference's 0.8-scale pyramid; iteration counts are chosen to
 give comparable effective depth. Every stage is separable correlations +
-per-pixel 2x2 solves: pure fused VPU work on TPU.
+per-pixel 2x2 solves: pure fused elementwise work.
 """
 
 from __future__ import annotations
@@ -81,7 +81,8 @@ def _poly_expansion(img, u, w, g_inv):
         _sep_correlate(img, wu, wu),  # xy
     ]
     m = jnp.stack(m, axis=-1)  # (H, W, 6)
-    coef = jnp.einsum("ij,hwj->hwi", jnp.asarray(g_inv, jnp.float32), m)
+    coef = jnp.einsum("ij,hwj->hwi", jnp.asarray(g_inv, jnp.float32), m,
+                      precision=jax.lax.Precision.HIGHEST)
     # f = c + b.x + x.A.x with A=[[a11,a12],[a12,a22]]
     b1, b2 = coef[..., 1], coef[..., 2]
     a11, a22, a12 = coef[..., 3], coef[..., 4], coef[..., 5] * 0.5
@@ -155,7 +156,7 @@ def farneback_flow(
     displacement-smoothing averaging window (cv::calcOpticalFlowFarneback's
     winsize; the reference passes (h+w)/100, flow.cpp:24-26). Round 2's
     parameter took the box HALF-width, so OpenCV-matched values smoothed
-    over ~2x the intended support (VERDICT r2 missing #4); matched-parameter
+    over ~2x the intended support; matched-parameter
     remap errors are tabled in BASELINE.md.
     """
     f1 = jnp.asarray(prev, jnp.float32)

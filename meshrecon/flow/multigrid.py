@@ -13,15 +13,13 @@ every ingredient (Jacobi sweeps, 5-tap pyramid restriction/prolongation) is
 the same fused-XLA machinery the solver already uses. No gathers, no new
 Pallas.
 
-TPU VERDICT (round 3, measured): the flop analysis does NOT transfer to
-v5e. Plain Jacobi compiles to ONE fused fori_loop whose working set stays
-VMEM-resident (~1 Tflop/s effective); the W-cycle fragments into ~19
+The flop analysis does not decide the wall time on an accelerator: plain
+Jacobi compiles to ONE fused loop, while the W-cycle fragments into ~19
 level visits x ~15 small XLA ops per solve, each with fixed launch/fusion
-overhead, and measured 20 ms vs 8.1 ms for the flow stage inside the
-fused update (tools/fused_breakdown.py, 640x480 K=3). The solver is kept
-as `variational_flow(..., solver="mg")`: it is the convergence REFERENCE
-for the verify-tpu sweep (2 cycles beat 60 sweeps against a 1500-sweep
-fixed point) and the right engine on op-overhead-free backends (CPU).
+overhead (its time on the H100 is not measured yet). The solver is kept as
+`variational_flow(..., solver="mg")`: it is the convergence REFERENCE (2
+cycles beat 60 sweeps against a 1500-sweep fixed point) and the right
+engine on op-overhead-free backends (CPU).
 
 System being solved (the fixed point of variational._hs_sweeps' iteration,
 the reference's relaxation semantics, flow.cpp:27-32): per pixel,
@@ -55,7 +53,7 @@ from meshrecon.flow.pyramid import pyr_down, pyr_up
 # W-cycle — the extra coarse visits fix the V-cycle's ~0.5x/cycle
 # asymptotic stall on strongly data-weighted pixels, while capping the
 # branching keeps the op count near-linear: an uncapped W-cycle visits
-# level l 2^l times, which balloons the XLA graph and TPU small-op
+# level l 2^l times, which balloons the XLA graph and its small-op
 # dispatches for identical convergence — measured int-max 0.496 capped vs
 # 0.495 full-W on the 240x320 fixture), coarsest-level sweep count, and the
 # size below which recursion stops. Measured against a 2000-sweep Jacobi

@@ -7,7 +7,8 @@ mismatch at all scales. It feeds the covariance weighting of the depth
 triangulation (util.cpp:222) and the flow's variance channel (flow.cpp:34).
 
 All ops are 5-tap separable filters expressed as shifted adds — XLA fuses
-these into a handful of VPU passes; no convolution primitives needed.
+these into a handful of elementwise passes; no convolution primitives
+needed.
 """
 
 from __future__ import annotations
@@ -47,9 +48,8 @@ def pyr_up(img, out_shape):
 
     Zero-stuffing uses ``lax.pad`` INTERIOR padding — the strided-scatter
     form (``zeros.at[..., ::2, ::2].set(img)``) lowered to a real scatter
-    and cost ~3.2 ms per (3, 240, 320) -> (3, 480, 640) call on v5e (it
-    dominated the whole flow solver); interior padding is a native XLA
-    dilation and costs microseconds.
+    and once dominated the whole flow solver; interior padding is a native
+    XLA dilation.
     """
     import jax
 

@@ -1,14 +1,14 @@
-"""Gather-free image warping by shift decomposition — the TPU-native warp.
+"""Gather-free image warping by shift decomposition.
 
-Dynamic gathers cost ~9 cycles/element on TPU; warping an image by a flow
-field with bounded magnitude can instead be written as a weighted sum of
-SHIFTED copies of the image:
+Warping an image by a flow field with bounded magnitude can be written,
+without any data-dependent gather, as a weighted sum of SHIFTED copies of
+the image:
 
     warp(img, f)[p] = sum_{d in window} img[p + d] * k(f(p) - d)
 
 where k is the interpolation kernel (bilinear hat or Keys bicubic). Every
-term is a dynamic-slice of a padded image + fused multiply-add on the VPU
-(no data-dependent addressing); for |f| <= R the result is EXACT (identical
+term is a dynamic-slice of a padded image + fused multiply-add (no
+data-dependent addressing); for |f| <= R the result is EXACT (identical
 to gather-based interpolation). Flows are clamped to [-R, R] first — inside
 the pipeline, flow magnitudes between a real frame and its rendered
 prediction are small by construction, and the pyramid levels of the flow
@@ -21,7 +21,7 @@ APPLICABILITY: only where displacements are BOUNDED BY CONSTRUCTION (the
 clamp silently corrupts larger flows — a 20 px translation came back as
 36 px when these warps backed the pyramid solver, whose per-level warp
 carries FULL-magnitude flow). Correct uses: residual warps inside a single
-solver level (round-2 banded VMEM kernel) and small-displacement contexts.
+solver level and small-displacement contexts.
 The production flow solvers use true gather warps.
 """
 

@@ -16,11 +16,13 @@ Conventions (identical to the reference program's):
 
 All functions are written for jnp arrays but accept numpy input; every op is
 shape-polymorphic over leading batch dimensions where noted, so the same code
-path serves single cameras on the host and vmapped/sharded batches on TPU.
+path serves single cameras on the host and vmapped/sharded batches on the
+device.
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -69,7 +71,8 @@ def project_points(camera, points4, lens_distortion=None, aspect=1.0):
     camera: (4, 4); points4: (N, 4). Returns (N, 3) Cartesian NDC points.
     Mirrors Configuration::projectPoints (configuration.cpp:262-267).
     """
-    projected = jnp.asarray(points4) @ jnp.asarray(camera).T
+    projected = jnp.matmul(jnp.asarray(points4), jnp.asarray(camera).T,
+                           precision=jax.lax.Precision.HIGHEST)
     cart = dehomogenize(projected)
     if lens_distortion is not None:
         cart = camera_to_screen(cart, lens_distortion, aspect)

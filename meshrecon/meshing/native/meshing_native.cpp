@@ -5,7 +5,7 @@
 // C++ equivalents for the inherently sequential host stages:
 //   - mt_extract: marching-tetrahedra iso-surface extraction with vertex
 //     dedup and gradient-based outward orientation (consumes the chi grid the
-//     TPU FFT Poisson solve produces; see meshrecon/meshing/poisson.py).
+//     device FFT Poisson solve produces; see meshrecon/meshing/poisson.py).
 //   - greedy_suppress: density-ordered greedy point suppression, the
 //     sequential tail of Heuristic::filterPoints (heuristic.cpp:145-175).
 //

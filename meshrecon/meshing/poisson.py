@@ -1,4 +1,4 @@
-"""Poisson-style surface reconstruction from oriented points, TPU-native.
+"""Poisson-style surface reconstruction from oriented points, on the device.
 
 Functional equivalent of the reference's CGAL Poisson stage
 (``cgal_poisson.cpp:47-136``): build an indicator function whose gradient
@@ -9,7 +9,7 @@ CGAL solves the Poisson equation with an adaptive FEM solve on a Delaunay
 refinement; here we use the Fourier formulation on a regular grid — splat the
 normal field into a voxel vector field V, solve ``laplacian(chi) = div V``
 spectrally with one 3-D FFT (this is the classic Fourier/Kazhdan solid
-reconstruction, and it maps perfectly onto TPU: the whole solve is three
+reconstruction, and it maps perfectly onto an accelerator: the whole solve is three
 rFFTs + an elementwise multiply + one irFFT in HBM), pick the iso level as
 the mean of chi over the input samples, and run marching tetrahedra.
 

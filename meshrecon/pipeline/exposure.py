@@ -12,6 +12,8 @@ grayscale as ``sum_c channel_c * exposure[c]`` (configuration.cpp:417-425).
 
 from __future__ import annotations
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 
 from meshrecon.geometry.camera import project_points
@@ -52,12 +54,19 @@ def _solve_exposure_device(sampled, valid):
     sampled: (F, N, C) host array (-1 where unsampled); valid: (F, N) bool.
     Returns (exposure (C, F) np.float64, brightness (N,) np.float64).
     """
-    import jax
-    import jax.numpy as jnp
+    s = np.where(valid[..., None], sampled, 0.0).astype(np.float32)
+    exposure, brightness = _exposure_iterations(
+        s, np.asarray(valid, np.float32))
+    return (np.asarray(exposure, np.float64),
+            np.asarray(brightness, np.float64))
 
-    f_count, p_count, ch = sampled.shape
-    s = jnp.asarray(np.where(valid[..., None], sampled, 0.0), jnp.float32)
-    v = jnp.asarray(valid, jnp.float32)
+
+@jax.jit
+def _exposure_iterations(s, v):
+    """The while_loop of _solve_exposure_device: s (F, N, C) samples with
+    invalid rows zeroed, v (F, N) validity as float."""
+    hi = jax.lax.Precision.HIGHEST
+    f_count, p_count, ch = s.shape
     sum_brightness = jnp.sum(s) / ch
     wsum = jnp.sum(v, axis=0)
     nvalid = jnp.maximum(jnp.sum(v, axis=1), 1.0)  # per-frame sample count
@@ -65,7 +74,7 @@ def _solve_exposure_device(sampled, valid):
     def step(carry):
         exposure, _bright, err, it = carry
         # (a) assume exposure correct -> per-point brightness
-        per_fp = jnp.einsum("fpc,cf->fp", s, exposure)
+        per_fp = jnp.einsum("fpc,cf->fp", s, exposure, precision=hi)
         brightness = jnp.where(wsum > 0, jnp.sum(per_fp, axis=0)
                                / jnp.maximum(wsum, 1.0), 0.0)
         brightness = brightness * (sum_brightness
@@ -75,7 +84,7 @@ def _solve_exposure_device(sampled, valid):
         sol = jax.vmap(lambda a_, b_: jnp.linalg.lstsq(a_, b_)[0])(s, b)
         omega = 0.4
         new = sol.T * (1 + omega) - exposure * omega  # (C, F)
-        resid = jnp.einsum("fpc,cf->fp", s, new) - b
+        resid = jnp.einsum("fpc,cf->fp", s, new, precision=hi) - b
         err = jnp.mean(jnp.linalg.norm(resid, axis=1) / nvalid)
         return new, brightness, err, it + 1
 
@@ -87,8 +96,7 @@ def _solve_exposure_device(sampled, valid):
             jnp.ones(p_count, jnp.float32), jnp.float32(jnp.inf),
             jnp.int32(0))
     exposure, brightness, _err, _it = jax.lax.while_loop(cond, step, init)
-    return (np.asarray(exposure, np.float64),
-            np.asarray(brightness, np.float64))
+    return exposure, brightness
 
 
 def estimate_exposure(frames, cameras, bundles, bundles_enabled, lens_distortion,

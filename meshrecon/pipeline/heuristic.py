@@ -392,8 +392,8 @@ class Heuristic:
     def _enforce_min_bundles(self, chosen, weights, ok=None, cos_v=None,
                              dist=None, cfv_n=None):
         """Bundle-count floor (``min_bundles``): a bad draw can stop the
-        accumulate-to-threshold loop at 2-4 bundles (measured at 1/8 res,
-        NOTES_ROUND4.md) and per-run quality tracks that count. Promote the
+        accumulate-to-threshold loop at 2-4 bundles (measured at 1/8 res)
+        and per-run quality tracks that count. Promote the
         highest-accumulated sub-threshold (main, side) pairs — the policy's
         own ranking of "nearly chosen" — one pair per new main, until the
         floor is met or candidates run out. Reference analog: none; its
@@ -459,7 +459,7 @@ class Heuristic:
            within ``coverage_quality`` of the best possible main for that
            shot — mere visibility is too weak a metric: on koule's 31-camera
            arc ONE camera sees every servable shot, so a visibility-based
-           repair never fires (round-3 full-res study, NOTES_ROUND4.md).
+           repair never fires (full-res study).
         2. BASELINE DIVERSITY (``baseline_diversity``): for each chosen
            main, if the best side NOT in its bundle outscores the best
            side IN it by more than a factor of ``baseline_diversity``,

@@ -1,30 +1,14 @@
-"""shard_map across jax versions.
+"""shard_map with the replication-check keyword under its older name.
 
-jax 0.8 promoted shard_map out of jax.experimental and renamed its
-replication-check kwarg (check_rep -> check_vma). Callers here keep the
-old spelling; this shim maps it onto whichever API is present so the
-sharded paths run warning-free on 0.8 and still work on older releases.
+Callers here spell the check ``check_rep``; the installed jax names it
+``check_vma``.
 """
 
 from __future__ import annotations
-
-import inspect
 
 
 def shard_map(f, *, mesh, in_specs, out_specs, check_rep=True):
     import jax
 
-    new_api = getattr(jax, "shard_map", None)
-    if new_api is not None:
-        kwargs = dict(mesh=mesh, in_specs=in_specs, out_specs=out_specs)
-        params = inspect.signature(new_api).parameters
-        if "check_vma" in params:
-            kwargs["check_vma"] = check_rep
-        elif "check_rep" in params:  # pragma: no cover - transitional jax
-            kwargs["check_rep"] = check_rep
-        return new_api(f, **kwargs)
-
-    from jax.experimental.shard_map import shard_map as old_api  # pragma: no cover
-
-    return old_api(f, mesh=mesh, in_specs=in_specs,  # pragma: no cover
-                   out_specs=out_specs, check_rep=check_rep)
+    return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
+                         out_specs=out_specs, check_vma=check_rep)

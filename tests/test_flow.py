@@ -220,8 +220,8 @@ def test_want_residual_matches_true_rewarp():
     error of the last solve increment (sub-pixel by construction)."""
     a = smooth_image(64, 96, seed=3)
     b = shift_image(a, 2, 1)
-    flow_plain = np.asarray(variational_flow(a, b, engine="xla", levels=6))
-    flow, rewarped = variational_flow(a, b, engine="xla", levels=6,
+    flow_plain = np.asarray(variational_flow(a, b, levels=6))
+    flow, rewarped = variational_flow(a, b, levels=6,
                                       want_residual=True)
     np.testing.assert_array_equal(np.asarray(flow), flow_plain)
     true_rewarp = np.asarray(flow_remap(jnp.asarray(flow), jnp.asarray(b)))
@@ -277,6 +277,6 @@ def test_flow_warps_config_plumbing(tmp_path):
         assert V._FLOW_WARPS == 1
         cfg.flow_warps = 0
         apply_kernel_knobs(cfg)
-        assert V._FLOW_WARPS == V._DEFAULTS[4]
+        assert V._FLOW_WARPS == V._DEFAULTS[3]
     finally:
-        V.set_flow_knobs(warps=V._DEFAULTS[4])
+        V.set_flow_knobs(warps=V._DEFAULTS[3])

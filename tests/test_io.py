@@ -90,3 +90,58 @@ def test_exporter_roundtrip(tmp_path):
     assert tf.bundles_enabled[0] == {0, 1}
     assert tf.bundles_enabled[1] == {1}
     assert abs(tf.distortion[0] + 0.1) < 1e-6
+
+
+def _pyyaml_read(path):
+    """The track file as PyYAML reads it once the two OpenCV quirks are
+    handled: the independent reference for read_opencv_yaml."""
+    yaml = pytest.importorskip("yaml")
+
+    def matrix(loader, node):
+        m = loader.construct_mapping(node, deep=True)
+        return np.asarray(m["data"], np.float32).reshape(int(m["rows"]),
+                                                        int(m["cols"]))
+
+    class Loader(yaml.SafeLoader):
+        pass
+
+    Loader.add_constructor("tag:yaml.org,2002:opencv-matrix", matrix)
+    with open(path) as fh:
+        lines = fh.read().splitlines()
+    if lines and lines[0].startswith("%YAML"):
+        lines = lines[1:]
+    return yaml.load("\n".join(lines), Loader=Loader)
+
+
+def _assert_same_tree(a, b, where="doc"):
+    if isinstance(b, np.ndarray):
+        assert isinstance(a, np.ndarray), where
+        np.testing.assert_array_equal(a, b, err_msg=where)
+    elif isinstance(b, dict):
+        assert isinstance(a, dict) and list(a) == list(b), where
+        for k in b:
+            _assert_same_tree(a[k], b[k], f"{where}.{k}")
+    elif isinstance(b, list):
+        assert isinstance(a, list) and len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_same_tree(x, y, f"{where}[{i}]")
+    else:
+        assert type(a) is type(b) and a == b, (where, a, b)
+
+
+@pytest.mark.parametrize("name", ["koberec-.yaml", "koberec.yaml",
+                                  "koule-tr.yaml", "zatisi.yaml"])
+def test_track_parser_matches_pyyaml(name):
+    from meshrecon.io.tracks import read_opencv_yaml
+
+    path = f"tracks/{name}"
+    _assert_same_tree(read_opencv_yaml(path), _pyyaml_read(path))
+
+
+def test_track_parser_rejects_unknown_tags(tmp_path):
+    from meshrecon.io.tracks import read_opencv_yaml
+
+    path = tmp_path / "bad.yaml"
+    path.write_text("%YAML:1.0\nclip:\n   fov: !!binary AAAA\n")
+    with pytest.raises(ValueError, match="bad.yaml:3"):
+        read_opencv_yaml(str(path))

@@ -1,4 +1,4 @@
-"""Minification stress test for projective texturing (VERDICT r3 item 7).
+"""Minification stress test for projective texturing.
 
 The reference samples the projected frame through mipmapped anisotropic GL
 textures (render_glx.cpp:65-88); our projected_image uses plain bilinear
@@ -98,7 +98,7 @@ def _project(main_cam, side_cam, h, w, fine, frame=None):
     if frame is None:
         frame = _side_frame(side_cam, h, w, fine)
     inten, mask = projected_image(main_cam, dm, jnp.asarray(frame),
-                                  side_cam, ds, engine="xla")
+                                  side_cam, ds)
     return np.asarray(inten), np.asarray(mask)
 
 
@@ -171,7 +171,7 @@ def test_minification_aliasing_regime_characterized():
 
 
 def test_minification_photo_statistics_8x():
-    """VERDICT r4 item 8: the characterized bound above was measured on
+    """The characterized bound above was measured on
     band-limited synthetic textures only. This fixture uses an analytic
     texture with PHOTO statistics (1/f amplitude spectrum, energy past the
     main camera's Nyquist rate) at 8x minification (side camera at z=2 vs
@@ -180,8 +180,8 @@ def test_minification_photo_statistics_8x():
     sampling — measured med 0.32 / p95 1.18 intensity units of a
     ~120-unit signal (bounds ~4x measured), versus med 16.6 / p95 39 for
     the adversarial near-Nyquist sinusoid above. Real-video content is
-    photo-statistics, so no mip/area fallback ships (VERDICT r4 item 8:
-    the characterized divergence holds off band-limited fixtures too)."""
+    photo-statistics, so no mip/area fallback ships (the
+    characterized divergence holds off band-limited fixtures too)."""
     med, p95 = _run_case(fine=False, tex=_photo_texture(),
                          side_eye=(0.3, 0.15, 2.0), hw=(96, 128),
                          min_valid=100)

@@ -124,7 +124,7 @@ def test_end_to_end_sphere_trimmed(koule_small, tmp_path):
     """--poisson-trim regression: trimming the unsupported Poisson closure
     must hold a much tighter error bound than the untrimmed e2e test
     (measured med 0.022 / p90 0.097 at this config; untrimmed bound 0.13).
-    Guards the round-3 flagship quality lever (NOTES_ROUND4.md)."""
+    Guards the flagship quality lever."""
     track, frames = koule_small
     cfg = Config(
         track=track,
@@ -478,7 +478,7 @@ def test_reconstruct_scenes(koule_small, tmp_path):
 def test_enforce_coverage_repairs_policy():
     """_enforce_coverage: greedy set-cover top-up + baseline-diversity
     append (the deterministic repairs behind --camera-coverage /
-    --baseline-diversity; see NOTES_ROUND3 seed-variance study)."""
+    --baseline-diversity)."""
     import types
 
     h = Heuristic.__new__(Heuristic)

@@ -200,11 +200,6 @@ def test_dilate3x3():
     assert out[1, 1] == 9.0 and out[3, 3] == 9.0 and out[0, 0] == 0.0
 
 
-# (the round-1 whole-soup Pallas raster kernel and its test were deleted in
-# round 3: superseded by the binned kernels in raster/binned.py, which carry
-# their own equality tests in tests/test_binned_raster.py)
-
-
 def test_shared_edge_ties_not_holed():
     """Sample points lying EXACTLY on an edge shared by two triangles must
     be covered by at least one of them (GL: exact arithmetic + top-left

@@ -1,11 +1,10 @@
 """E2E quality cost of the flow sweep count (MESHRECON_FLOW_ITERS A/B).
 
-The Chebyshev solver's 20 accelerated sweeps are the compute-bound core of
-the flow solve (~4-5.5 ms of the ~12-13 ms fused update on v5e); dropping
-to 14 or 12 sweeps is the cheapest remaining flow-perf lever IF the e2e
-geometry survives. Quality is hardware-independent, so this study runs on
-CPU at 1/8 res (80x60 koule) while the TPU lease is busy; the wall-time
-payoff is then measured on hardware via MESHRECON_FLOW_ITERS in a bench run.
+The Chebyshev solver's accelerated sweeps are the arithmetic core of the
+flow solve; dropping sweeps is a flow-perf lever IF the e2e geometry
+survives. Quality is hardware-independent, so this study runs on the CPU at
+1/8 res (80x60 koule); the wall-time payoff is measured on the GPU via
+MESHRECON_FLOW_ITERS in a bench run.
 
 Usage: python tools/iters_study.py [--iters 20,14,12] [--seeds 3,4,5]
 """
@@ -26,7 +25,7 @@ def main(argv=None):
 
     import jax
 
-    jax.config.update("jax_platforms", "cpu")  # never touch the TPU lease
+    jax.config.update("jax_platforms", "cpu")  # a quality study
 
     import numpy as np
 
@@ -65,5 +64,4 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    sys.path.insert(0, "/root/repo")
     sys.exit(main())

@@ -7,7 +7,7 @@ surface error: the quantitative counterpart of BASELINE.json's "meshes
 matching CPU reference" criterion while the reference's sample videos are
 unavailable.
 
-Multi-scene (VERDICT r3 item 3): every preset is validated on THREE
+Multi-scene: every preset is validated on THREE
 geometries, not one sphere — koule-tr (sphere), koberec- (bounded plane,
 carpet-like; the reference's Makefile demo scene, Makefile:43-45) and
 zatisi (still-life arc, sphere-fit fixture). The metric follows the
@@ -76,8 +76,7 @@ CONFIGS = {
     "hybrid-n3": {"depth_mode": "hybrid", "iteration_count": 3,
                   "sweep_depths": 48},
     # support-distance trim of the hallucinated Poisson closure — the
-    # round-3 flagship quality lever (med 7x, p90 10x at 1/8 res;
-    # NOTES_ROUND4.md)
+    # round-3 flagship quality lever (med 7x, p90 10x at 1/8 res)
     "trim": {"depth_mode": "hybrid", "iteration_count": 2,
              "sweep_depths": 48, "poisson_trim": 2.0},
     "trim-sp2": {"depth_mode": "hybrid", "iteration_count": 2,
@@ -90,20 +89,16 @@ CONFIGS = {
     # the flagship `--preset quality` bundle (pipeline/config.py:547-556):
     # 3-draw seed-ensemble union + 3 consensus-trim rounds on the default
     # support trim. Gated below with its own per-scene bounds so the
-    # flagship claim has a regression bound (VERDICT r4 item 4c).
+    # flagship claim has a regression bound.
     "quality": {"depth_mode": "hybrid", "iteration_count": 2,
                 "sweep_depths": 48, "poisson_trim": 2.0,
                 "consensus_rounds": 3, "ensemble_seeds": (3, 13, 23)},
-    # round-5 flow gate rows: lv2+w1 became the pipeline default after
-    # the tpu_q6/q7 gates (BASELINE.md "lv2 flow-pyramid gate"); lv3w2
-    # restores the round-4 config for regression A/Bs. shbl measured no
-    # perf win (bench 61.5 vs 62.0) — rejected, row kept for the record.
+    # flow gate rows: lv2+w1 became the pipeline default after the gates
+    # in BASELINE.md "lv2 flow-pyramid gate"; lv3w2 restores the older
+    # config for regression A/Bs
     "lv3w2": {"flow_levels": 3, "flow_warps": 2},
-    "shbl": {"shadow_sample": "bilinear"},
     # taylor variance gate: the first-order re-warp eliminates the
-    # bicubic re-gather (~0.55 ms/update, bench 71.0 vs 66.8 at lv2w1
-    # defaults); round-3 rejected it at a small 1/8-res quality cost —
-    # re-gated here under the round-5 kernel stack
+    # bicubic re-gather (BASELINE.md "taylor variance gate")
     "taylor": {"variance_mode": "taylor"},
     # explicit-rewarp controls: after the round-5 taylor default flip the
     # bare "default"/"quality" rows measure taylor, so A/Bs must pin the
@@ -121,10 +116,10 @@ CONFIGS = {
 }
 
 # Default-config regression bounds on the MEDIAN at --scale 8 (measured
-# post-tie-slop + taylor default, tpu_q9/q10: koule 0.113, koberec- 0.049,
-# zatisi 0.064 — the tie-slop fix's denser re-draw moved koule 0.082 ->
-# 0.113, so its bound is re-set at ~2x the current measurement like the
-# others; --tolerance multiplies them). Generous vs measured so draw
+# before the port to the GPU, post-tie-slop + taylor default: koule 0.113,
+# koberec- 0.049, zatisi 0.064 — the tie-slop fix's denser re-draw moved
+# koule 0.082 -> 0.113, so its bound is re-set at ~2x the measurement like
+# the others; --tolerance multiplies them). Generous vs measured so draw
 # noise cannot flake the gate, tight enough to catch a regression.
 SCENE_BOUNDS = {
     "koule-tr": 0.22,
@@ -133,10 +128,10 @@ SCENE_BOUNDS = {
 }
 
 # Regression bounds for the flagship "quality" preset config at --scale 8
-# (measured round 5 on the v5e AFTER the raster shared-edge tie-slop fix
-# — the fix fills exact-tie interior holes in depth renders, which makes
-# more probes servable and re-draws the camera policy (koule moved
-# 4622 -> 16816 faces); tpu_q5 session, seed 3 + draws (3,13,23): koule
+# (measured before the port to the GPU, AFTER the raster shared-edge
+# tie-slop fix — the fix fills exact-tie interior holes in depth renders,
+# which makes more probes servable and re-draws the camera policy (koule
+# moved 4622 -> 16816 faces); seed 3 + draws (3,13,23): koule
 # 0.0484/0.1403, koberec- 0.0088/0.0278, zatisi 0.0658/0.2157 med/p90;
 # bounds ~2x measured so draw noise cannot flake the gate). Gated on BOTH
 # median and p90 — the preset's claim is a tail claim. zatisi's preset

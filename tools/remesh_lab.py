@@ -6,8 +6,8 @@ NOT one catastrophic bundle — bundle-level rejection moved seed-5 med only
 0.0345 -> 0.0339 while the oracle point filter reaches 0.0094. The bad
 points are spread across bundles, so the lever must be point-level. This
 lab re-meshes one refined cloud under many candidate rules in seconds per
-rule (refinement costs ~40 s at 1/8 res on CPU and ~30 min at full res on
-the TPU — dump once, iterate here).
+rule (refinement costs ~40 s at 1/8 res on CPU and minutes at full res —
+dump once, iterate here).
 
 Meshing mirrors Heuristic.tessellate (pipeline/heuristic.py) minus the
 pipeline: normalize-average normals -> FFT Poisson -> supported components
